@@ -22,7 +22,7 @@ import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 
-PACKAGE = "ska_sdp_func_tpu"
+PACKAGE = "ska_sdp_func_jax"
 SUBPACKAGES = [
     "",                      # top-level exports
     "grid_data",
@@ -108,7 +108,7 @@ def _render_module(qualname):
 def main():
     check = "--check" in sys.argv
     os.makedirs(OUT_DIR, exist_ok=True)
-    index = ["# ska_sdp_func_tpu API reference", "",
+    index = ["# ska_sdp_func_jax API reference", "",
              "Generated by `python docs/gen_api.py` (CI docs stage "
              "verifies freshness with `--check`).", ""]
     stale = []

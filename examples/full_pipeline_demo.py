@@ -16,17 +16,12 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import numpy as np
 
-import jax
-
-if os.environ.get("JAX_PLATFORMS"):
-    jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
-
 import jax.numpy as jnp
 
-from ska_sdp_func_tpu.grid_data import dft, image_to_flmn
-from ska_sdp_func_tpu.parallel import plan_wstack
-from ska_sdp_func_tpu.pipeline import ingest_to_solver, major_cycle_imager
-from ska_sdp_func_tpu.visibility import briggs_weights, get_uv_range
+from ska_sdp_func_jax.grid_data import dft, image_to_flmn
+from ska_sdp_func_jax.parallel import plan_wstack
+from ska_sdp_func_jax.pipeline import ingest_to_solver, major_cycle_imager
+from ska_sdp_func_jax.visibility import briggs_weights, get_uv_range
 
 C_0 = 299792458.0
 

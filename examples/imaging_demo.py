@@ -17,16 +17,11 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import numpy as np
 
-import jax
-
-if os.environ.get("JAX_PLATFORMS"):
-    jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
-
 import jax.numpy as jnp
 
-from ska_sdp_func_tpu.grid_data import dft, image_to_flmn
-from ska_sdp_func_tpu.parallel import make_mesh, plan_wstack
-from ska_sdp_func_tpu.pipeline import major_cycle_imager, save_result
+from ska_sdp_func_jax.grid_data import dft, image_to_flmn
+from ska_sdp_func_jax.parallel import make_mesh, plan_wstack
+from ska_sdp_func_jax.pipeline import major_cycle_imager, save_result
 
 C_0 = 299792458.0
 
@@ -76,8 +71,8 @@ def main():
                 image_size // 2 + 13:image_size // 2 + 18].sum(),
           model[image_size // 2 + 28:image_size // 2 + 33,
                 image_size // 2 + 26:image_size // 2 + 31].sum())
-    save_result("/tmp/ska_sdp_func_tpu_demo_result.npz", result)
-    print("saved /tmp/ska_sdp_func_tpu_demo_result.npz")
+    save_result("/tmp/ska_sdp_func_jax_demo_result.npz", result)
+    print("saved /tmp/ska_sdp_func_jax_demo_result.npz")
 
 
 if __name__ == "__main__":

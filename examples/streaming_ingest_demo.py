@@ -1,4 +1,4 @@
-"""Streaming whole-survey ingest demo: planning on the TPU.
+"""Streaming whole-survey ingest demo: planning on the device.
 
 Simulates an observation arriving in time chunks and grids it into a
 dirty image WITHOUT any host planning in the loop:
@@ -12,7 +12,7 @@ dirty image WITHOUT any host planning in the loop:
   -> StreamingDegridder predicts model visibilities chunk by chunk
      (the selfcal/calibration direction)
 
-Works on CPU (Pallas interpreter mode) and on a real TPU chip:
+Works on the CPU (the XLA formulations) and on an NVIDIA GPU:
 
   JAX_PLATFORMS=cpu python examples/streaming_ingest_demo.py
 """
@@ -24,21 +24,16 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import numpy as np
 
-import jax
+import jax.numpy as jnp
 
-if os.environ.get("JAX_PLATFORMS"):
-    jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
-
-import jax.numpy as jnp  # noqa: E402
-
-from ska_sdp_func_tpu.parallel import (  # noqa: E402
+from ska_sdp_func_jax.parallel import (  # noqa: E402
     StreamingDegridder,
     StreamingGridder,
     plan_stream,
     plan_wstack,
     stream_tasks,
 )
-from ska_sdp_func_tpu.parallel.wstack import degrid_all_tasks  # noqa: E402
+from ska_sdp_func_jax.parallel.wstack import degrid_all_tasks  # noqa: E402
 
 C_0 = 299792458.0
 IMAGE, SUBGRID, THETA = 256, 128, 0.002

@@ -15,15 +15,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import numpy as np
 
-import jax
-
-if os.environ.get("JAX_PLATFORMS"):
-    jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
-
 import jax.numpy as jnp
 
-from ska_sdp_func_tpu.grid_data import GridderWtowerUVW
-from ska_sdp_func_tpu.utility.device import device_put
+from ska_sdp_func_jax.grid_data import GridderWtowerUVW
 
 C_0 = 299792458.0
 
@@ -42,12 +36,12 @@ def main():
     uvw = rng.uniform(-1, 1, (num_rows, 3)).astype(np.float32)
     uvw[:, :2] *= 0.4 * subgrid_size / 2 / theta
     uvw[:, 2] *= 1.5 * w_step
-    uvw_d = device_put(uvw)
+    uvw_d = jnp.asarray(uvw)
     start = jnp.zeros((num_rows,), jnp.int32)
     end = jnp.full((num_rows,), num_chan, jnp.int32)
 
     # Forward: image -> visibilities.
-    image = device_put((rng.standard_normal((subgrid_size, subgrid_size))
+    image = jnp.asarray((rng.standard_normal((subgrid_size, subgrid_size))
                         + 1j * rng.standard_normal(
                             (subgrid_size, subgrid_size))
                         ).astype(np.complex64))
@@ -55,12 +49,12 @@ def main():
                               uvw_d, start, end)
 
     # Adjoint: visibilities -> image.
-    y = device_put((rng.standard_normal((num_rows, num_chan))
+    y = jnp.asarray((rng.standard_normal((num_rows, num_chan))
                     + 1j * rng.standard_normal((num_rows, num_chan))
                     ).astype(np.complex64))
     img_adj = plan.grid_subgrid(
         y, uvw_d, start, end, num_chan, freq0, dfreq,
-        device_put(np.zeros((subgrid_size, subgrid_size), np.complex64)),
+        jnp.asarray(np.zeros((subgrid_size, subgrid_size), np.complex64)),
         (0, 0, 0))
 
     # <y, A x> == <A^T y, x>

@@ -4,14 +4,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ska_sdp_func_tpu.parallel import plan_wstack
-from ska_sdp_func_tpu.parallel.bucketed import (
+from ska_sdp_func_jax.parallel import plan_wstack
+from ska_sdp_func_jax.parallel.bucketed import (
     degrid_all_bucketed,
     grid_all_bucketed,
     inverse_index_of,
     plan_bucketed,
 )
-from ska_sdp_func_tpu.parallel.wstack import (
+from ska_sdp_func_jax.parallel.wstack import (
     degrid_all_tasks,
     grid_all_tasks,
 )
@@ -109,8 +109,8 @@ def test_bucketed_degrid_matches_task_driver(scenario):
 def test_bucketed_sharded_matches_single(scenario):
     """The mesh-sharded bucketed grid equals the single-chip bucketed
     grid (the GPU-vs-CPU consistency pattern)."""
-    from ska_sdp_func_tpu.parallel import make_mesh
-    from ska_sdp_func_tpu.parallel.bucketed import grid_all_bucketed_sharded
+    from ska_sdp_func_jax.parallel import make_mesh
+    from ska_sdp_func_jax.parallel.bucketed import grid_all_bucketed_sharded
 
     s = scenario
     uvw = jnp.asarray(s["uvw"])

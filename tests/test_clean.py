@@ -8,9 +8,9 @@ import numpy as np
 import pytest
 import scipy.signal
 
-from ska_sdp_func_tpu.clean import create_cbeam, hogbom_clean, ms_clean_cornwell
-from ska_sdp_func_tpu.numeric_functions import fft_convolution
-from ska_sdp_func_tpu.grid_data import dft, idft, image_lmn, image_to_flmn
+from ska_sdp_func_jax.clean import create_cbeam, hogbom_clean, ms_clean_cornwell
+from ska_sdp_func_jax.numeric_functions import fft_convolution
+from ska_sdp_func_jax.grid_data import dft, idft, image_lmn, image_to_flmn
 
 C_0 = 299792458.0
 
@@ -218,8 +218,8 @@ def test_msclean_scale_bias_fixes_point_source_flux():
     scale 0 instead of smearing it over the largest scale (ROADMAP
     round-1 item; the reference-faithful ms_clean_cornwell keeps the
     unbiased selection)."""
-    from ska_sdp_func_tpu.clean.hogbom import create_cbeam
-    from ska_sdp_func_tpu.pipeline.major_cycle import _make_msclean_minor
+    from ska_sdp_func_jax.clean.hogbom import create_cbeam
+    from ska_sdp_func_jax.pipeline.major_cycle import _make_msclean_minor
 
     size = 128
     psf = np.asarray(create_cbeam(

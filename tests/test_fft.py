@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ska_sdp_func_tpu.fourier_transforms import (
+from ska_sdp_func_jax.fourier_transforms import (
     Fft,
     fft_norm,
     fft_phase,
@@ -17,7 +17,7 @@ from ska_sdp_func_tpu.fourier_transforms import (
     ifft_shifted,
     padded_fft_size,
 )
-from ska_sdp_func_tpu.utility.errors import SdpDataTypeError
+from ska_sdp_func_jax.utility.errors import SdpDataTypeError
 
 
 @pytest.mark.parametrize("dtype", [np.complex64, np.complex128])

@@ -8,7 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ska_sdp_func_tpu.grid_data import (
+from ska_sdp_func_jax.grid_data import (
     accumulate_scaled_arrays,
     clamp_channels_inline,
     clamp_channels_single,

@@ -4,7 +4,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from ska_sdp_func_tpu.grid_data import (
+from ska_sdp_func_jax.grid_data import (
     GridderDirect,
     GridderWtowerUVW,
     degrid_uvw_custom,
@@ -185,7 +185,7 @@ def test_deprecated_grid_degrid_signatures_match_subgrid_forms():
     img = np.zeros((size, size))
     img[20, 24] = 1.0
     facet = kern.degrid_correct(jnp.asarray(img, complex))
-    from ska_sdp_func_tpu.fourier_transforms.fft import fft_shifted, \
+    from ska_sdp_func_jax.fourier_transforms.fft import fft_shifted, \
         ifft_shifted_norm
     sub = ifft_shifted_norm(fft_shifted(facet))
     vis_t = jnp.zeros((num_rows, num_chan), jnp.complex128)

@@ -1,11 +1,11 @@
 """Inner-tap kernel implementations agree with each other.
 
 The scatter formulation is validated against the in-file NumPy oracle in
-test_wtower.py; here the dense banded-matmul path and the Pallas TPU
-kernel (interpreter mode on CPU) are validated against the scatter path
-and against each other — the implementation-consistency pattern the
-reference uses for GPU-vs-CPU (tests/grid_data/test_gridder_wtower_uvw.py
-:1848,1869).
+test_wtower.py; here the dense banded-matmul path is validated against
+the scatter path, and its all-layer twin (the bucketed driver's inner
+tap) against a NumPy scatter/gather oracle — the
+implementation-consistency pattern the reference uses for GPU-vs-CPU
+(tests/grid_data/test_gridder_wtower_uvw.py:1848,1869).
 """
 
 import jax
@@ -13,19 +13,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ska_sdp_func_tpu.grid_data.wtower import (
+from ska_sdp_func_jax.grid_data.wtower import (
     GridderWtowerUVW,
     _degrid_plane,
     _grid_plane_scatter,
     _plane_geometry,
 )
-from ska_sdp_func_tpu.kernels.dense_tap import (
+from ska_sdp_func_jax.kernels.dense_tap import (
+    degrid_all_layers_dense,
     degrid_plane_dense,
+    grid_all_layers_dense,
     grid_plane_dense,
-)
-from ska_sdp_func_tpu.kernels.pallas_tap import (
-    degrid_plane_pallas,
-    grid_plane_pallas,
 )
 
 C_0 = 299792458.0
@@ -82,35 +80,6 @@ def test_dense_degrid_matches_gather_f64(setup):
                                atol=1e-12)
 
 
-def test_pallas_grid_interpret_matches_dense(setup):
-    s = setup
-    vis32 = s["vis"].astype(jnp.complex64)
-    zero = jnp.zeros((W_SUPPORT, SG, SG), jnp.complex64)
-    ref = grid_plane_dense(zero, vis32, s["uvk"].astype(jnp.float32),
-                           s["wk"].astype(jnp.float32), s["geom"],
-                           SUPPORT, W_SUPPORT)
-    out = grid_plane_pallas(zero, vis32, s["uvk"].astype(jnp.float32),
-                            s["wk"].astype(jnp.float32), s["geom"],
-                            SUPPORT, W_SUPPORT, block_v=128,
-                            interpret=True)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               atol=1e-4)
-
-
-def test_pallas_degrid_interpret_matches_dense(setup):
-    s = setup
-    sub32 = s["subgrids"].astype(jnp.complex64)
-    ref = degrid_plane_dense(sub32, s["uvk"].astype(jnp.float32),
-                             s["wk"].astype(jnp.float32), s["geom"],
-                             SUPPORT, W_SUPPORT)
-    out = degrid_plane_pallas(sub32, s["uvk"].astype(jnp.float32),
-                              s["wk"].astype(jnp.float32), s["geom"],
-                              SUPPORT, W_SUPPORT, block_v=128,
-                              interpret=True)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               atol=1e-4)
-
-
 def test_dense_adjointness(setup):
     s = setup
     rng = np.random.default_rng(2)
@@ -124,31 +93,84 @@ def test_dense_adjointness(setup):
     assert abs(lhs - rhs) / abs(lhs) < 1e-13
 
 
-@pytest.mark.verylong
-@pytest.mark.slow
-def test_sparse_grid_interpret_matches_dense():
-    """Sparse per-vis kernel (prototype) against the dense banded path."""
-    from ska_sdp_func_tpu.kernels.pallas_tap import grid_all_layers_pallas
-    from ska_sdp_func_tpu.kernels.sparse_tap import grid_all_layers_sparse
+# All-layer twin: (num_layers K, subgrid N, support S, w_support Sw).
+ALL_LAYER_CASES = [(7, 32, 8, 4), (5, 64, 6, 3)]
 
-    rng = np.random.default_rng(0)
-    V, N, S, SW, K = 300, 32, 8, 4, 7
-    iu0 = jnp.asarray(rng.integers(0, N - S, V).astype(np.int32))
-    iv0 = jnp.asarray(rng.integers(0, N - S, V).astype(np.int32))
-    j = rng.integers(0, K - SW + 1, V).astype(np.int32)
-    uk = jnp.asarray(rng.random((V, S), np.float32))
-    vk = jnp.asarray(rng.random((V, S), np.float32))
-    wk = jnp.asarray(rng.random((V, SW), np.float32))
-    vre = jnp.asarray(rng.standard_normal(V).astype(np.float32))
-    vim = jnp.asarray(rng.standard_normal(V).astype(np.float32))
-    weights = np.zeros((V, K), np.float32)
-    for layer in range(SW):
-        weights[np.arange(V), j + layer] = np.asarray(wk)[:, layer]
-    ref = grid_all_layers_pallas(vre, vim, iu0, iv0, uk, vk,
-                                 jnp.asarray(weights), K, N, S,
-                                 block_v=128, interpret=True)
-    got = grid_all_layers_sparse(vre, vim, iu0, iv0, jnp.asarray(j), uk,
-                                 vk, wk, K, N, S, SW, block_v=128,
-                                 interpret=True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
-                               atol=1e-5)
+
+def _all_layer_taps(num_k, size, support, w_support, seed=0):
+    rng = np.random.default_rng(seed)
+    num_v = 300
+    iu0 = rng.integers(0, size - support + 1, num_v)
+    iv0 = rng.integers(0, size - support + 1, num_v)
+    slab = rng.integers(0, num_k - w_support + 1, num_v)
+    uk = rng.random((num_v, support))
+    vk = rng.random((num_v, support))
+    wk = rng.random((num_v, w_support))
+    weights = np.zeros((num_v, num_k))
+    for layer in range(w_support):
+        weights[np.arange(num_v), slab + layer] = wk[:, layer]
+    vis = rng.standard_normal(num_v) + 1j * rng.standard_normal(num_v)
+    return iu0, iv0, uk, vk, weights, vis
+
+
+@pytest.mark.parametrize("num_k,size,support,w_support", ALL_LAYER_CASES)
+def test_dense_all_layers_grid_matches_numpy_scatter(num_k, size, support,
+                                                     w_support):
+    iu0, iv0, uk, vk, weights, vis = _all_layer_taps(
+        num_k, size, support, w_support)
+    oracle = np.zeros((num_k, size, size), complex)
+    for p in range(vis.shape[0]):
+        patch = np.outer(uk[p], vk[p]) * vis[p]
+        for k in range(num_k):
+            oracle[k, iu0[p]:iu0[p] + support,
+                   iv0[p]:iv0[p] + support] += weights[p, k] * patch
+    out = grid_all_layers_dense(
+        jnp.asarray(vis.real), jnp.asarray(vis.imag),
+        jnp.asarray(iu0, jnp.int32), jnp.asarray(iv0, jnp.int32),
+        jnp.asarray(uk), jnp.asarray(vk), jnp.asarray(weights), num_k,
+        size)
+    assert out.shape == (num_k, size, size)
+    err = np.abs(np.asarray(out) - oracle).max() / np.abs(oracle).max()
+    assert err < 2e-6
+
+
+@pytest.mark.parametrize("num_k,size,support,w_support", ALL_LAYER_CASES)
+def test_dense_all_layers_degrid_matches_numpy_gather(num_k, size,
+                                                      support, w_support):
+    iu0, iv0, uk, vk, weights, _ = _all_layer_taps(
+        num_k, size, support, w_support)
+    rng = np.random.default_rng(4)
+    layers = (rng.standard_normal((num_k, size, size))
+              + 1j * rng.standard_normal((num_k, size, size)))
+    oracle = np.array([
+        sum(weights[p, k] * np.sum(
+            np.outer(uk[p], vk[p])
+            * layers[k, iu0[p]:iu0[p] + support,
+                     iv0[p]:iv0[p] + support])
+            for k in range(num_k))
+        for p in range(iu0.shape[0])])
+    out = degrid_all_layers_dense(
+        jnp.asarray(layers, jnp.complex64), jnp.asarray(iu0, jnp.int32),
+        jnp.asarray(iv0, jnp.int32), jnp.asarray(uk), jnp.asarray(vk),
+        jnp.asarray(weights))
+    err = np.abs(np.asarray(out) - oracle).max() / np.abs(oracle).max()
+    assert err < 2e-6
+
+
+def test_dense_all_layers_adjointness():
+    num_k, size, support, w_support = ALL_LAYER_CASES[0]
+    iu0, iv0, uk, vk, weights, vis = _all_layer_taps(
+        num_k, size, support, w_support, seed=3)
+    rng = np.random.default_rng(5)
+    layers = (rng.standard_normal((num_k, size, size))
+              + 1j * rng.standard_normal((num_k, size, size)))
+    args = (jnp.asarray(iu0, jnp.int32), jnp.asarray(iv0, jnp.int32),
+            jnp.asarray(uk), jnp.asarray(vk), jnp.asarray(weights))
+    aty = np.asarray(grid_all_layers_dense(
+        jnp.asarray(vis.real), jnp.asarray(vis.imag), *args[:2],
+        *args[2:], num_k, size))
+    ax = np.asarray(degrid_all_layers_dense(
+        jnp.asarray(layers, jnp.complex64), *args))
+    lhs = np.vdot(ax, vis)
+    rhs = np.vdot(layers, aty)
+    assert abs(lhs - rhs) / abs(lhs) < 1e-5

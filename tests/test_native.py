@@ -5,8 +5,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from ska_sdp_func_tpu import native
-from ska_sdp_func_tpu.grid_data import uvw_bounds_all
+from ska_sdp_func_jax import native
+from ska_sdp_func_jax.grid_data import uvw_bounds_all
 
 C_0 = 299792458.0
 

@@ -3,7 +3,7 @@
 The reference systematically asserts failure paths (wrong dtype /
 ndim / shape / read-only; tests/fourier_transforms/test_fft.cpp:25-40,
 202 and every test_*.cpp); this file mirrors that discipline for the
-TPU framework's typed exception family (utility/errors.py).
+framework's typed exception family (utility/errors.py).
 """
 
 import numpy as np
@@ -11,7 +11,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from ska_sdp_func_tpu.utility.errors import (
+from ska_sdp_func_jax.utility.errors import (
     SdpDataTypeError,
     SdpInvalidArgumentError,
     SdpShapeError,
@@ -25,14 +25,14 @@ C_0 = 299792458.0
 # ---------------------------------------------------------------------------
 
 def test_fft_rejects_real_template():
-    from ska_sdp_func_tpu.fourier_transforms import Fft
+    from ska_sdp_func_jax.fourier_transforms import Fft
 
     with pytest.raises(SdpDataTypeError):
         Fft(jnp.zeros((8, 8), jnp.float64), 2, True)
 
 
 def test_fft_exec_rejects_mismatched_shape():
-    from ska_sdp_func_tpu.fourier_transforms import Fft
+    from ska_sdp_func_jax.fourier_transforms import Fft
 
     plan = Fft(jnp.zeros((8, 8), jnp.complex128), 2, True)
     with pytest.raises(SdpInvalidArgumentError):
@@ -40,14 +40,14 @@ def test_fft_exec_rejects_mismatched_shape():
 
 
 def test_fft_shifted_rejects_real_input():
-    from ska_sdp_func_tpu.fourier_transforms.fft import fft_shifted
+    from ska_sdp_func_jax.fourier_transforms.fft import fft_shifted
 
     with pytest.raises(SdpDataTypeError):
         fft_shifted(jnp.zeros((8, 8), jnp.float64))
 
 
 def test_ifft_shifted_rejects_real_input():
-    from ska_sdp_func_tpu.fourier_transforms.fft import ifft_shifted
+    from ska_sdp_func_jax.fourier_transforms.fft import ifft_shifted
 
     with pytest.raises(SdpDataTypeError):
         ifft_shifted(jnp.zeros((8, 8), jnp.float32))
@@ -58,42 +58,42 @@ def test_ifft_shifted_rejects_real_input():
 # ---------------------------------------------------------------------------
 
 def test_check_uvw_wrong_ndim():
-    from ska_sdp_func_tpu.utility.data_model import check_uvw
+    from ska_sdp_func_jax.utility.data_model import check_uvw
 
     with pytest.raises(SdpShapeError):
         check_uvw(jnp.zeros((5, 3)))          # needs [time, baseline, 3]
 
 
 def test_check_uvw_wrong_last_dim():
-    from ska_sdp_func_tpu.utility.data_model import check_uvw
+    from ska_sdp_func_jax.utility.data_model import check_uvw
 
     with pytest.raises(SdpShapeError):
         check_uvw(jnp.zeros((2, 5, 4)))
 
 
 def test_check_uvw_integer_dtype():
-    from ska_sdp_func_tpu.utility.data_model import check_uvw
+    from ska_sdp_func_jax.utility.data_model import check_uvw
 
     with pytest.raises(SdpDataTypeError):
         check_uvw(jnp.zeros((2, 5, 3), jnp.int32))
 
 
 def test_check_vis_real_dtype():
-    from ska_sdp_func_tpu.utility.data_model import check_vis
+    from ska_sdp_func_jax.utility.data_model import check_vis
 
     with pytest.raises(SdpDataTypeError):
         check_vis(jnp.zeros((2, 5, 3, 1), jnp.float64))
 
 
 def test_check_vis_bad_pols():
-    from ska_sdp_func_tpu.utility.data_model import check_vis
+    from ska_sdp_func_jax.utility.data_model import check_vis
 
     with pytest.raises(SdpShapeError):
         check_vis(jnp.zeros((2, 5, 3, 3), jnp.complex128))
 
 
 def test_check_weights_shape_mismatch():
-    from ska_sdp_func_tpu.utility.data_model import (
+    from ska_sdp_func_jax.utility.data_model import (
         check_vis,
         check_weights,
     )
@@ -110,14 +110,14 @@ def test_check_weights_shape_mismatch():
 
 @pytest.fixture(scope="module")
 def wtower_kernel():
-    from ska_sdp_func_tpu.grid_data import GridderWtowerUVW
+    from ska_sdp_func_jax.grid_data import GridderWtowerUVW
 
     return GridderWtowerUVW(64, 32, 0.002, 100.0, 0, 0, 8, 16384, 4,
                             16384)
 
 
 def test_wtower_odd_subgrid_rejected():
-    from ska_sdp_func_tpu.grid_data import GridderWtowerUVW
+    from ska_sdp_func_jax.grid_data import GridderWtowerUVW
 
     with pytest.raises(SdpInvalidArgumentError):
         GridderWtowerUVW(64, 31, 0.002, 100.0, 0, 0, 8, 16384, 4, 16384)
@@ -187,7 +187,7 @@ def test_wtower_degrid_wrong_subgrid_shape(wtower_kernel):
 # ---------------------------------------------------------------------------
 
 def test_dft_v00_bad_uvw_rank():
-    from ska_sdp_func_tpu.visibility import dft_point_v00
+    from ska_sdp_func_jax.visibility import dft_point_v00
 
     with pytest.raises(SdpShapeError):
         dft_point_v00(jnp.zeros((2, 3)), jnp.zeros((2, 4, 1),
@@ -196,7 +196,7 @@ def test_dft_v00_bad_uvw_rank():
 
 
 def test_dft_v00_bad_pols():
-    from ska_sdp_func_tpu.visibility import dft_point_v00
+    from ska_sdp_func_jax.visibility import dft_point_v00
 
     with pytest.raises(SdpShapeError):
         dft_point_v00(jnp.zeros((2, 3)),
@@ -205,21 +205,21 @@ def test_dft_v00_bad_pols():
 
 
 def test_flagger_bad_rank():
-    from ska_sdp_func_tpu.visibility import flagger_dynamic_threshold
+    from ska_sdp_func_jax.visibility import flagger_dynamic_threshold
 
     with pytest.raises(SdpShapeError):
         flagger_dynamic_threshold(jnp.zeros((4, 8), jnp.complex128))
 
 
 def test_flagger_real_vis():
-    from ska_sdp_func_tpu.visibility import flagger_dynamic_threshold
+    from ska_sdp_func_jax.visibility import flagger_dynamic_threshold
 
     with pytest.raises(SdpDataTypeError):
         flagger_dynamic_threshold(jnp.zeros((4, 2, 8, 1), jnp.float64))
 
 
 def test_weighting_bad_uvw():
-    from ska_sdp_func_tpu.visibility import briggs_weights
+    from ska_sdp_func_jax.visibility import briggs_weights
 
     with pytest.raises(SdpShapeError):
         briggs_weights(jnp.zeros((4, 3)), jnp.asarray([1e9]), 100.0,
@@ -231,7 +231,7 @@ def test_weighting_bad_uvw():
 # ---------------------------------------------------------------------------
 
 def test_hogbom_rejects_1d_dirty():
-    from ska_sdp_func_tpu.clean import hogbom_clean
+    from ska_sdp_func_jax.clean import hogbom_clean
 
     with pytest.raises(SdpShapeError):
         hogbom_clean(jnp.zeros((16,)), jnp.zeros((32, 32)),
@@ -239,7 +239,7 @@ def test_hogbom_rejects_1d_dirty():
 
 
 def test_hogbom_rejects_small_psf():
-    from ska_sdp_func_tpu.clean import hogbom_clean
+    from ska_sdp_func_jax.clean import hogbom_clean
 
     with pytest.raises(SdpShapeError):
         hogbom_clean(jnp.zeros((16, 16)), jnp.zeros((16, 16)),
@@ -247,7 +247,7 @@ def test_hogbom_rejects_small_psf():
 
 
 def test_ms_clean_rejects_small_psf():
-    from ska_sdp_func_tpu.clean import ms_clean_cornwell
+    from ska_sdp_func_jax.clean import ms_clean_cornwell
 
     with pytest.raises(SdpShapeError):
         ms_clean_cornwell(jnp.zeros((16, 16)), jnp.zeros((16, 16)),
@@ -259,7 +259,7 @@ def test_ms_clean_rejects_small_psf():
 # ---------------------------------------------------------------------------
 
 def test_station_beam_real_weights():
-    from ska_sdp_func_tpu.station_beam import aperture_array
+    from ska_sdp_func_jax.station_beam import aperture_array
 
     with pytest.raises(SdpDataTypeError):
         aperture_array(1.0, jnp.zeros((4,), jnp.float64),
@@ -268,7 +268,7 @@ def test_station_beam_real_weights():
 
 
 def test_custom_degrid_bad_grid_rank():
-    from ska_sdp_func_tpu.grid_data import degrid_uvw_custom
+    from ska_sdp_func_jax.grid_data import degrid_uvw_custom
 
     with pytest.raises(SdpShapeError):
         degrid_uvw_custom(jnp.zeros((8, 8), jnp.complex128),
@@ -278,14 +278,14 @@ def test_custom_degrid_bad_grid_rank():
 
 
 def test_swiftly_invalid_configuration():
-    from ska_sdp_func_tpu.fourier_transforms import Swiftly
+    from ska_sdp_func_jax.fourier_transforms import Swiftly
 
     with pytest.raises(SdpInvalidArgumentError):
         Swiftly(1024, 512, 100, 13.5625)     # xM must divide N evenly
 
 
 def test_swiftly_facet_too_large():
-    from ska_sdp_func_tpu.fourier_transforms import Swiftly
+    from ska_sdp_func_jax.fourier_transforms import Swiftly
 
     sw = Swiftly(1024, 512, 256, 13.5625)
     with pytest.raises(SdpShapeError):
@@ -293,7 +293,7 @@ def test_swiftly_facet_too_large():
 
 
 def test_make_kernel_rejects_2d_window():
-    from ska_sdp_func_tpu.grid_data.kernels import make_kernel
+    from ska_sdp_func_jax.grid_data.kernels import make_kernel
 
     with pytest.raises(SdpInvalidArgumentError):
         make_kernel(np.zeros((4, 4)), 64)
@@ -304,7 +304,7 @@ def test_make_kernel_rejects_2d_window():
 # ---------------------------------------------------------------------------
 
 def _tiny_plan(subgrid_frac=2.0 / 3.0, subgrid_size=32):
-    from ska_sdp_func_tpu.parallel import plan_wstack
+    from ska_sdp_func_jax.parallel import plan_wstack
 
     rng = np.random.default_rng(0)
     uvw = rng.uniform(-1, 1, (20, 3))
@@ -314,7 +314,7 @@ def _tiny_plan(subgrid_frac=2.0 / 3.0, subgrid_size=32):
 
 
 def test_plan_bucketed_rejects_oversize_frac():
-    from ska_sdp_func_tpu.parallel.bucketed import plan_bucketed
+    from ska_sdp_func_jax.parallel.bucketed import plan_bucketed
 
     plan, uvw = _tiny_plan(subgrid_frac=0.9)
     with pytest.raises(SdpInvalidArgumentError):
@@ -322,7 +322,7 @@ def test_plan_bucketed_rejects_oversize_frac():
 
 
 def test_plan_packed_rejects_oversize_frac():
-    from ska_sdp_func_tpu.parallel.packed import plan_packed
+    from ska_sdp_func_jax.parallel.packed import plan_packed
 
     plan, uvw = _tiny_plan(subgrid_frac=0.99, subgrid_size=128)
     with pytest.raises(SdpInvalidArgumentError):
@@ -330,7 +330,7 @@ def test_plan_packed_rejects_oversize_frac():
 
 
 def test_plan_packed_rejects_unaligned_subgrid():
-    from ska_sdp_func_tpu.parallel.packed import plan_packed
+    from ska_sdp_func_jax.parallel.packed import plan_packed
 
     plan, uvw = _tiny_plan(subgrid_size=32)
     with pytest.raises(SdpInvalidArgumentError):
@@ -338,8 +338,8 @@ def test_plan_packed_rejects_unaligned_subgrid():
 
 
 def test_plan_packed_rejects_wide_support():
-    from ska_sdp_func_tpu.parallel import plan_wstack
-    from ska_sdp_func_tpu.parallel.packed import plan_packed
+    from ska_sdp_func_jax.parallel import plan_wstack
+    from ska_sdp_func_jax.parallel.packed import plan_packed
 
     rng = np.random.default_rng(0)
     uvw = rng.uniform(-1, 1, (20, 3))
@@ -351,8 +351,8 @@ def test_plan_packed_rejects_wide_support():
 
 
 def test_plan_packed_rejects_tall_w_support():
-    from ska_sdp_func_tpu.parallel import plan_wstack
-    from ska_sdp_func_tpu.parallel.packed import plan_packed
+    from ska_sdp_func_jax.parallel import plan_wstack
+    from ska_sdp_func_jax.parallel.packed import plan_packed
 
     rng = np.random.default_rng(0)
     uvw = rng.uniform(-1, 1, (20, 3))
@@ -364,7 +364,7 @@ def test_plan_packed_rejects_tall_w_support():
 
 
 def test_wstack_grid_all_requires_image_template():
-    from ska_sdp_func_tpu.grid_data.wstack import wstack_wtower_grid_all
+    from ska_sdp_func_jax.grid_data.wstack import wstack_wtower_grid_all
 
     rng = np.random.default_rng(0)
     uvw = rng.uniform(-1, 1, (20, 3))
@@ -384,7 +384,7 @@ def test_wstack_grid_all_requires_image_template():
 
 
 def test_clamp_channels_single_bad_dim():
-    from ska_sdp_func_tpu.grid_data import clamp_channels_single
+    from ska_sdp_func_jax.grid_data import clamp_channels_single
 
     uvw = jnp.zeros((4, 3))
     chs = jnp.zeros((4,), jnp.int32)
@@ -394,7 +394,7 @@ def test_clamp_channels_single_bad_dim():
 
 
 def test_clamp_channels_single_bad_uvw_shape():
-    from ska_sdp_func_tpu.grid_data import clamp_channels_single
+    from ska_sdp_func_jax.grid_data import clamp_channels_single
 
     chs = jnp.zeros((4,), jnp.int32)
     with pytest.raises(SdpShapeError):
@@ -403,7 +403,7 @@ def test_clamp_channels_single_bad_uvw_shape():
 
 
 def test_clamp_channels_uv_bad_uvw_shape():
-    from ska_sdp_func_tpu.grid_data import clamp_channels_uv
+    from ska_sdp_func_jax.grid_data import clamp_channels_uv
 
     chs = jnp.zeros((4,), jnp.int32)
     with pytest.raises(SdpShapeError):
@@ -412,7 +412,7 @@ def test_clamp_channels_uv_bad_uvw_shape():
 
 
 def test_uvw_bounds_all_bad_shape():
-    from ska_sdp_func_tpu.grid_data import uvw_bounds_all
+    from ska_sdp_func_jax.grid_data import uvw_bounds_all
 
     chs = jnp.zeros((4,), jnp.int32)
     with pytest.raises(SdpShapeError):
@@ -420,21 +420,21 @@ def test_uvw_bounds_all_bad_shape():
 
 
 def test_gridder_dft_mismatched_sources():
-    from ska_sdp_func_tpu.grid_data import dft
+    from ska_sdp_func_jax.grid_data import dft
 
     with pytest.raises(SdpShapeError):
         dft(jnp.zeros((5, 3)), jnp.ones((3,)), jnp.zeros((4, 3)))
 
 
 def test_gridder_dft_bad_lmn():
-    from ska_sdp_func_tpu.grid_data import dft
+    from ska_sdp_func_jax.grid_data import dft
 
     with pytest.raises(SdpShapeError):
         dft(jnp.zeros((5, 3)), jnp.ones((4,)), jnp.zeros((4, 2)))
 
 
 def test_gridder_idft_needs_image_or_shape():
-    from ska_sdp_func_tpu.grid_data import idft
+    from ska_sdp_func_jax.grid_data import idft
 
     vis = jnp.ones((5, 2), jnp.complex64)
     with pytest.raises(SdpInvalidArgumentError):
@@ -442,7 +442,7 @@ def test_gridder_idft_needs_image_or_shape():
 
 
 def test_subgrid_add_oversize_subgrid():
-    from ska_sdp_func_tpu.grid_data import subgrid_add
+    from ska_sdp_func_jax.grid_data import subgrid_add
 
     with pytest.raises(SdpShapeError):
         subgrid_add(jnp.zeros((16, 16), jnp.complex64), 0, 0,
@@ -450,7 +450,7 @@ def test_subgrid_add_oversize_subgrid():
 
 
 def test_subgrid_cut_out_oversize():
-    from ska_sdp_func_tpu.grid_data import subgrid_cut_out
+    from ska_sdp_func_jax.grid_data import subgrid_cut_out
 
     with pytest.raises(SdpShapeError):
         subgrid_cut_out(jnp.zeros((16, 16), jnp.complex64), 0, 0, 32)
@@ -471,8 +471,8 @@ def test_wtower_mixed_precision_combo_rejected(wtower_kernel):
 
 
 def test_phase_rotate_vis_bad_rank():
-    from ska_sdp_func_tpu.utility import SkyCoord
-    from ska_sdp_func_tpu.visibility import phase_rotate_vis
+    from ska_sdp_func_jax.utility import SkyCoord
+    from ska_sdp_func_jax.visibility import phase_rotate_vis
 
     orig = SkyCoord("icrs", 0.1, 0.5)
     new = SkyCoord("icrs", 0.11, 0.51)
@@ -483,14 +483,14 @@ def test_phase_rotate_vis_bad_rank():
 
 
 def test_get_uv_range_bad_rank():
-    from ska_sdp_func_tpu.visibility import get_uv_range
+    from ska_sdp_func_jax.visibility import get_uv_range
 
     with pytest.raises(SdpShapeError):
         get_uv_range(jnp.zeros((10, 3)), jnp.asarray([C_0]))
 
 
 def test_uniform_weights_bad_uvw():
-    from ska_sdp_func_tpu.visibility import uniform_weights
+    from ska_sdp_func_jax.visibility import uniform_weights
 
     with pytest.raises(SdpShapeError):
         uniform_weights(jnp.zeros((2, 3, 2)), jnp.asarray([C_0]), 10.0,
@@ -498,7 +498,7 @@ def test_uniform_weights_bad_uvw():
 
 
 def test_count_and_prefix_sum_bad_uvw():
-    from ska_sdp_func_tpu.visibility import count_and_prefix_sum
+    from ska_sdp_func_jax.visibility import count_and_prefix_sum
 
     with pytest.raises(SdpShapeError):
         count_and_prefix_sum(jnp.zeros((10, 3)), jnp.asarray([C_0]),
@@ -506,7 +506,7 @@ def test_count_and_prefix_sum_bad_uvw():
 
 
 def test_bucket_sort_bad_uvw():
-    from ska_sdp_func_tpu.visibility import bucket_sort
+    from ska_sdp_func_jax.visibility import bucket_sort
 
     with pytest.raises(SdpShapeError):
         bucket_sort(jnp.zeros((10, 2)), jnp.asarray([C_0]),
@@ -515,7 +515,7 @@ def test_bucket_sort_bad_uvw():
 
 
 def test_tiled_indexing_bad_uvw():
-    from ska_sdp_func_tpu.visibility import tiled_indexing
+    from ska_sdp_func_jax.visibility import tiled_indexing
 
     with pytest.raises(SdpShapeError):
         tiled_indexing(jnp.zeros((10, 3)), jnp.asarray([C_0]), 64, 32,
@@ -523,7 +523,7 @@ def test_tiled_indexing_bad_uvw():
 
 
 def test_optimized_weighting_bad_uvw():
-    from ska_sdp_func_tpu.visibility import optimized_weighting
+    from ska_sdp_func_jax.visibility import optimized_weighting
 
     with pytest.raises(SdpShapeError):
         optimized_weighting(jnp.zeros((10, 3)), jnp.asarray([C_0]),
@@ -532,14 +532,14 @@ def test_optimized_weighting_bad_uvw():
 
 
 def test_create_cbeam_bad_details():
-    from ska_sdp_func_tpu.clean import create_cbeam
+    from ska_sdp_func_jax.clean import create_cbeam
 
     with pytest.raises(SdpShapeError):
         create_cbeam(jnp.ones((2, 2)), 64)
 
 
 def test_fft_convolution_non_square():
-    from ska_sdp_func_tpu.numeric_functions import fft_convolution
+    from ska_sdp_func_jax.numeric_functions import fft_convolution
 
     with pytest.raises(SdpShapeError):
         fft_convolution(jnp.ones((8, 4), jnp.complex64),
@@ -547,7 +547,7 @@ def test_fft_convolution_non_square():
 
 
 def test_dipole_real_element_beam():
-    from ska_sdp_func_tpu.station_beam import dipole
+    from ska_sdp_func_jax.station_beam import dipole
 
     theta = jnp.zeros((5,))
     with pytest.raises(SdpDataTypeError):
@@ -555,21 +555,21 @@ def test_dipole_real_element_beam():
 
 
 def test_generate_pswf_bad_size():
-    from ska_sdp_func_tpu.fourier_transforms import generate_pswf
+    from ska_sdp_func_jax.fourier_transforms import generate_pswf
 
     with pytest.raises(SdpInvalidArgumentError):
         generate_pswf(0, 4 * np.pi / 2, 0)
 
 
 def test_pswf_coefficients_nonzero_m():
-    from ska_sdp_func_tpu.fourier_transforms import Pswf
+    from ska_sdp_func_jax.fourier_transforms import Pswf
 
     with pytest.raises(SdpInvalidArgumentError):
         _ = Pswf(1, 4 * np.pi / 2).coefficients
 
 
 def test_determine_max_w_tower_height_needs_fov():
-    from ska_sdp_func_tpu.grid_data import determine_max_w_tower_height
+    from ska_sdp_func_jax.grid_data import determine_max_w_tower_height
 
     with pytest.raises(SdpInvalidArgumentError):
         determine_max_w_tower_height(
@@ -579,14 +579,14 @@ def test_determine_max_w_tower_height_needs_fov():
 
 
 def test_es_params_epsilon_floor():
-    from ska_sdp_func_tpu.grid_data import calculate_params_from_epsilon
+    from ska_sdp_func_jax.grid_data import calculate_params_from_epsilon
 
     with pytest.raises(ValueError):
         calculate_params_from_epsilon(1e-7, 256, True)
 
 
 def test_wstack_degrid_all_bad_image():
-    from ska_sdp_func_tpu.grid_data.wstack import wstack_wtower_degrid_all
+    from ska_sdp_func_jax.grid_data.wstack import wstack_wtower_degrid_all
 
     rng = np.random.default_rng(0)
     uvw = rng.uniform(-1, 1, (20, 3))

@@ -10,11 +10,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ska_sdp_func_tpu.grid_data import (
+from ska_sdp_func_jax.grid_data import (
     wstack_wtower_degrid_all,
     wstack_wtower_grid_all,
 )
-from ska_sdp_func_tpu.parallel import (
+from ska_sdp_func_jax.parallel import (
     make_mesh,
     plan_wstack,
     wstack_degrid_all_sharded,

@@ -10,9 +10,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ska_sdp_func_tpu.grid_data import dft, image_to_flmn
-from ska_sdp_func_tpu.parallel import make_mesh, plan_wstack
-from ska_sdp_func_tpu.pipeline import dirty_and_psf, major_cycle_imager
+from ska_sdp_func_jax.grid_data import dft, image_to_flmn
+from ska_sdp_func_jax.parallel import make_mesh, plan_wstack
+from ska_sdp_func_jax.pipeline import dirty_and_psf, major_cycle_imager
 
 C_0 = 299792458.0
 
@@ -165,7 +165,7 @@ def test_orbax_checkpointer_roundtrip(tmp_path):
     import jax
     from jax.sharding import NamedSharding, PartitionSpec
 
-    from ska_sdp_func_tpu.pipeline import SolverCheckpointer
+    from ska_sdp_func_jax.pipeline import SolverCheckpointer
 
     rng = np.random.default_rng(7)
     model = jnp.asarray(rng.standard_normal((32, 32)), jnp.float32)
@@ -208,7 +208,7 @@ def test_orbax_checkpointer_roundtrip(tmp_path):
 def test_checkpointer_solver_resume(scenario, tmp_path):
     """Solver resume through the orbax checkpointer matches the
     uninterrupted solve exactly (mirrors test_checkpoint_resume)."""
-    from ska_sdp_func_tpu.pipeline import SolverCheckpointer
+    from ska_sdp_func_jax.pipeline import SolverCheckpointer
 
     s = scenario
     kwargs = dict(n_major=2, loop_gain=0.2, threshold=1e-3,
@@ -238,7 +238,7 @@ def test_checkpointer_solver_resume(scenario, tmp_path):
 def test_major_cycle_with_briggs_weights(scenario):
     """Weighted imaging: briggs weights plug into the solver and point
     sources are still recovered (weights reshape the PSF, not the flux)."""
-    from ska_sdp_func_tpu.visibility import briggs_weights, get_uv_range
+    from ska_sdp_func_jax.visibility import briggs_weights, get_uv_range
 
     s = scenario
     num_rows, num_chan = s["vis"].shape
@@ -306,7 +306,7 @@ def test_ingest_flags_rfi_and_protects_image(scenario):
     """BASELINE config #4: the ingest stage flags an injected RFI spike
     and zeroes its weight, so the weighted solve recovers the true sky
     while the unflagged solve is corrupted."""
-    from ska_sdp_func_tpu.pipeline.ingest import ingest_to_solver
+    from ska_sdp_func_jax.pipeline.ingest import ingest_to_solver
 
     s = scenario
     num_rows, num_chan = s["vis"].shape
@@ -326,7 +326,7 @@ def test_ingest_flags_rfi_and_protects_image(scenario):
 
 
 def test_station_beam_power_normalised():
-    from ska_sdp_func_tpu.pipeline.ingest import station_beam_power
+    from ska_sdp_func_jax.pipeline.ingest import station_beam_power
 
     rng = np.random.default_rng(0)
     n_elem = 64
@@ -352,7 +352,7 @@ def test_solver_verbosity_stage_report(scenario):
     import io
     import logging
 
-    from ska_sdp_func_tpu.utility.logging import get_logger
+    from ska_sdp_func_jax.utility.logging import get_logger
 
     s = scenario
     buf = io.StringIO()
@@ -375,8 +375,8 @@ def test_solver_verbosity_stage_report(scenario):
 def test_ingest_sharded_matches_single():
     """Baseline-sharded ingest == single-device ingest (pad baselines
     to the mesh size, trim, psum only the flagged fraction)."""
-    from ska_sdp_func_tpu.parallel import make_mesh
-    from ska_sdp_func_tpu.pipeline.ingest import (
+    from ska_sdp_func_jax.parallel import make_mesh
+    from ska_sdp_func_jax.pipeline.ingest import (
         ingest_flag_and_weight,
         ingest_flag_and_weight_sharded,
     )
@@ -404,7 +404,7 @@ def test_fista_imager_recovers_sources(scenario_packed):
     """FISTA proximal-gradient solve through the packed operators
     (the north star's CLEAN/FISTA solver family): point sources
     recovered, data residual decreasing."""
-    from ska_sdp_func_tpu.pipeline import fista_imager
+    from ska_sdp_func_jax.pipeline import fista_imager
 
     s = scenario_packed
     res = fista_imager(s["plan"], jnp.asarray(s["vis"]),
@@ -423,7 +423,7 @@ def test_fista_imager_recovers_sources(scenario_packed):
 @pytest.mark.slow
 def test_fista_sharded_matches_single(scenario_packed):
     """FISTA through the block-sharded packed drivers == single-chip."""
-    from ska_sdp_func_tpu.pipeline import fista_imager
+    from ska_sdp_func_jax.pipeline import fista_imager
 
     s = scenario_packed
     kw = dict(n_iter=8, lam_frac=2e-3)

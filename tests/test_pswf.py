@@ -5,7 +5,7 @@ import numpy as np
 import pytest
 import scipy.special
 
-from ska_sdp_func_tpu.fourier_transforms import (
+from ska_sdp_func_jax.fourier_transforms import (
     Pswf,
     generate_pswf,
     pswf_coefficients,

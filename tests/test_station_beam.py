@@ -7,12 +7,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ska_sdp_func_tpu.station_beam import (
+from ska_sdp_func_jax.station_beam import (
     aperture_array,
     dipole,
     spherical_wave_harp,
 )
-from ska_sdp_func_tpu.station_beam.element import (
+from ska_sdp_func_jax.station_beam.element import (
     dipole_pattern,
     dipole_pattern_scalar,
 )

@@ -14,7 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ska_sdp_func_tpu.parallel import (
+from ska_sdp_func_jax.parallel import (
     StreamingDegridder,
     StreamingGridder,
     packed_gridder,
@@ -23,7 +23,7 @@ from ska_sdp_func_tpu.parallel import (
     plan_wstack,
     stream_tasks,
 )
-from ska_sdp_func_tpu.utility.errors import (
+from ska_sdp_func_jax.utility.errors import (
     SdpInvalidArgumentError,
     SdpRuntimeError,
 )
@@ -76,9 +76,8 @@ def test_streaming_matches_packed_interior(scenario):
     on the image interior (f32 floor; border ring excluded, see module
     docstring)."""
     s = scenario
-    # Streaming's fused kernels run "highest"; match the reference.
-    g = packed_gridder(plan_packed(s["plan"], s["uvw"], block_v=128),
-                       precision="highest")
+    # Same (default) precision as the streaming engine.
+    g = packed_gridder(plan_packed(s["plan"], s["uvw"], block_v=128))
     img_ref = np.asarray(g.grid(jnp.asarray(s["vis"])))
 
     sp = plan_stream(s["plan"], s["boxes"], chunk_rows=64,
@@ -270,7 +269,7 @@ def test_streaming_predict_dropped_raises(scenario):
 def test_streaming_sharded_matches_single(scenario):
     """Row-sharded chunk step over the virtual mesh == single-device
     streaming (planes psum; counters psum; same f32 plan per shard)."""
-    from ska_sdp_func_tpu.parallel import make_mesh
+    from ska_sdp_func_jax.parallel import make_mesh
 
     s = scenario
     sp = plan_stream(s["plan"], s["boxes"], chunk_rows=64,
@@ -296,7 +295,7 @@ def test_streaming_sharded_matches_single(scenario):
 def test_streaming_sharded_predict_matches_single(scenario):
     """Row-sharded predict over the virtual mesh == single-device
     predict (embarrassingly row-parallel; counters psum)."""
-    from ska_sdp_func_tpu.parallel import make_mesh
+    from ska_sdp_func_jax.parallel import make_mesh
 
     s = scenario
     sp = plan_stream(s["plan"], s["boxes"], chunk_rows=64,
@@ -319,7 +318,7 @@ def test_streaming_ingest_composition_flags_rfi(scenario):
     (pipeline.ingest_to_solver) feeds StreamingGridder chunk by chunk
     — the flagged sample's zeroed weight keeps the streamed image
     equal to the clean-data image."""
-    from ska_sdp_func_tpu.pipeline.ingest import ingest_to_solver
+    from ska_sdp_func_jax.pipeline.ingest import ingest_to_solver
 
     s = scenario
     num_rows, num_chan = s["vis"].shape
@@ -436,12 +435,11 @@ def test_box_membership_fma_hull():
 
 @pytest.mark.slow
 def test_streaming_nonpackable_fallback_matches_packed(scenario):
-    """Geometries outside the packed-word limits (oversampling >
-    32768) route through the prep-kernel + band-kernel fallback path
-    (_pack=False) — pin it against the packed reference the same way
-    the fused path is pinned."""
-    from ska_sdp_func_tpu.parallel.packed import plan_packed
-    from ska_sdp_func_tpu.parallel.wstack import plan_wstack
+    """A finer uv oversampling (65536) streams through the same device
+    plan and kernels — pin it against the packed reference the same
+    way as the default geometry."""
+    from ska_sdp_func_jax.parallel.packed import plan_packed
+    from ska_sdp_func_jax.parallel.wstack import plan_wstack
 
     s = scenario
     plan = plan_wstack(
@@ -451,14 +449,12 @@ def test_streaming_nonpackable_fallback_matches_packed(scenario):
         support=8, oversampling=65536, w_support=4,
         w_oversampling=16384,
         w_tower_height=s["plan"].w_tower_height)
-    g = packed_gridder(plan_packed(plan, s["uvw"], block_v=128),
-                       precision="highest")
+    g = packed_gridder(plan_packed(plan, s["uvw"], block_v=128))
     img_ref = np.asarray(g.grid(jnp.asarray(s["vis"])))
 
     sp = plan_stream(plan, s["boxes"], chunk_rows=64, block_v=128,
                      cap_slots=20480)
     sg = StreamingGridder(sp)
-    assert not sg._engine._pack
     rows = s["uvw"].shape[0]
     for lo in range(0, rows, 64):
         hi = min(rows, lo + 64)

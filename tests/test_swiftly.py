@@ -8,7 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ska_sdp_func_tpu.fourier_transforms import Swiftly
+from ska_sdp_func_jax.fourier_transforms import Swiftly
 
 PARAMS = dict(W=13.5625, N=1024, yB_size=416, yN_size=512, xA_size=228,
               xM_size=256)
@@ -197,7 +197,7 @@ def test_batched_broadcast():
 
 
 def test_swiftly_validation():
-    from ska_sdp_func_tpu.utility.errors import SdpInvalidArgumentError
+    from ska_sdp_func_jax.utility.errors import SdpInvalidArgumentError
     with pytest.raises(SdpInvalidArgumentError):
         Swiftly(1024, 500, 256, 13.0)   # N % yN != 0
     with pytest.raises(SdpInvalidArgumentError):

@@ -17,7 +17,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from ska_sdp_func_tpu.fourier_transforms import Swiftly
+from ska_sdp_func_jax.fourier_transforms import Swiftly
 
 
 @pytest.mark.slow

@@ -9,9 +9,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ska_sdp_func_tpu.fourier_transforms import Swiftly
-from ska_sdp_func_tpu.parallel import make_mesh
-from ska_sdp_func_tpu.parallel.swiftly_dist import SwiftlyDistributed
+from ska_sdp_func_jax.fourier_transforms import Swiftly
+from ska_sdp_func_jax.parallel import make_mesh
+from ska_sdp_func_jax.parallel.swiftly_dist import SwiftlyDistributed
 
 PARAMS = dict(W=13.5625, N=1024, yN_size=512, xM_size=256)
 D = 8

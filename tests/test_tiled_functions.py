@@ -4,13 +4,13 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from ska_sdp_func_tpu.visibility.tiled_functions import (
+from ska_sdp_func_jax.visibility.tiled_functions import (
     _geometry,
     bucket_sort,
     count_and_prefix_sum,
     tiled_indexing,
 )
-from ska_sdp_func_tpu.visibility.opt_weighting import (
+from ska_sdp_func_jax.visibility.opt_weighting import (
     optimised_indexed_weighting,
     optimized_weighting,
 )

@@ -6,15 +6,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ska_sdp_func_tpu.utility import SkyCoord
-from ska_sdp_func_tpu.visibility import (
+from ska_sdp_func_jax.utility import SkyCoord
+from ska_sdp_func_jax.visibility import (
     dft_point_v00,
     dft_point_v01,
     phase_rotate_uvw,
     phase_rotate_vis,
 )
-from ska_sdp_func_tpu.visibility.flagger import flagger_dynamic_threshold
-from ska_sdp_func_tpu.visibility.weighting import (
+from ska_sdp_func_jax.visibility.flagger import flagger_dynamic_threshold
+from ska_sdp_func_jax.visibility.weighting import (
     briggs_weights,
     get_uv_range,
     uniform_weights,

@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ska_sdp_func_tpu.grid_data import (
+from ska_sdp_func_jax.grid_data import (
     dft,
     idft,
     image_lmn,
@@ -120,7 +120,7 @@ def test_wstack_engine_packed_matches_reference():
     """engine="packed" routes the reference-API drivers through the
     packed production path; f32 results match the reference loop to
     kernel accuracy, and incompatible geometry raises."""
-    from ska_sdp_func_tpu.grid_data.wstack import (
+    from ska_sdp_func_jax.grid_data.wstack import (
         wstack_wtower_degrid_all,
         wstack_wtower_grid_all,
     )

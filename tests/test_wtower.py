@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import scipy.special
 
-from ska_sdp_func_tpu.grid_data import GridderWtowerUVW, dft, image_to_flmn
+from ska_sdp_func_jax.grid_data import GridderWtowerUVW, dft, image_to_flmn
 
 C_0 = 299792458.0
 
@@ -326,7 +326,7 @@ def test_plan_accessors():
 
 
 def test_plan_rejects_odd_subgrid():
-    from ska_sdp_func_tpu.utility.errors import SdpInvalidArgumentError
+    from ska_sdp_func_jax.utility.errors import SdpInvalidArgumentError
     bad = dict(PARAMS)
     bad["subgrid_size"] = 63
     with pytest.raises(SdpInvalidArgumentError):
